@@ -1,9 +1,9 @@
-"""garlic_tpu: a TPU-native runs-of-homozygosity (ROH) calling engine.
+"""garlic_tpu: a device-accelerated runs-of-homozygosity (ROH) calling engine.
 
 Re-implements the capabilities of GARLIC (szpiech/garlic v1.1.6a) —
 four-phase Pemberton/Blant ROH pipeline, all I/O formats, CLI and output
-byte-compatibility — as a JAX/XLA/Pallas engine that shards individuals
-data-parallel over a TPU mesh.
+byte-compatibility — as a JAX/XLA/Pallas engine that runs on a GPU and
+shards individuals data-parallel over a device mesh.
 """
 
 import os as _os

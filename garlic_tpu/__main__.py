@@ -2,23 +2,13 @@
 
 from __future__ import annotations
 
-import os
 import sys
 
 
 def main() -> None:
     from .pipeline import run_main
     rc = run_main(sys.argv[1:], prog=sys.argv[0])
-    # Skip interpreter teardown: the TPU runtime's worker threads can be
-    # force-unwound mid-C++ during process exit and abort() AFTER a fully
-    # successful run ("FATAL: exception not rethrown", observed ~1/4 runs
-    # on the dev attachment, independent of our code paths).  Every
-    # output is flushed and closed by run_main's finally blocks; _exit
-    # makes the CLI's exit status reflect the pipeline result, not the
-    # runtime's teardown luck.
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(rc & 0xFF)  # -1 -> 255, exactly like sys.exit(-1)
+    sys.exit(rc & 0xFF)  # -1 -> 255, exactly like sys.exit(-1)
 
 
 if __name__ == "__main__":

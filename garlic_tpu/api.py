@@ -10,7 +10,7 @@ notebooks/services without the file-output ceremony:
 
 Every knob mirrors the CLI flag of the same name; defaults match
 src/garlic-cli.cpp.  Engines: "exact" (f64, reference-identical) or
-"fast" (f32 TPU path); `mesh` accepts a jax.sharding.Mesh for SPMD runs.
+"fast" (f32 device path); `mesh` accepts a jax.sharding.Mesh for SPMD runs.
 """
 
 from __future__ import annotations
@@ -102,6 +102,9 @@ def call_roh(ds: Dataset, winsize: int = 60, error: float = 0.001,
     centro = getattr(ds, "_centro", None) or Centromere(
         "hg19", "none", "none", RunLog())
     use_gl = getattr(ds, "_use_gl", False)
+    if engine == "fast":
+        from .runtime import enable_compile_cache
+        enable_compile_cache()
 
     win_by_chr = []
     for c in ds.chroms:

@@ -10,8 +10,9 @@ src/param_t.{h,cpp}) and the GARLIC flag schema + ~20 cross-flag validators
 * list flags consume tokens until the next known flag (src/param_t.cpp:303-341)
 * duplicate or unknown flags are rejected (src/param_t.cpp:272-277,520-527)
 
-Extra flags not present in the reference are namespaced under --tpu-* and
-control the TPU engine (mesh shape, precision, device usage).
+Extra flags not present in the reference are namespaced under --tpu-* (a
+historical prefix kept for compatibility) and control the device engine
+(mesh shape, precision, device usage).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .version import OUTPUT_COMPAT_VERSION
 VERSION = OUTPUT_COMPAT_VERSION
 
 PREAMBLE = f"""
-garlic-tpu v{VERSION} -- a TPU-native engine to call runs of homozygosity in genetic data.
+garlic-tpu v{VERSION} -- a device-accelerated engine to call runs of homozygosity in genetic data.
 
 Citations:
 
@@ -71,7 +72,7 @@ ARG_PHASED = "--phased"
 ARG_NCLUST = "--nclust"
 ARG_CM = "--cm"
 ARG_KDE_THINNING = "--no-kde-thinning"
-# TPU-engine extensions (not in reference)
+# Device-engine extensions (not in reference)
 ARG_ENGINE = "--tpu-engine"
 ARG_SEED = "--tpu-seed"
 ARG_PROFILE = "--tpu-profile"
@@ -177,7 +178,7 @@ def _flag_specs() -> List[FlagSpec]:
         FlagSpec(ARG_KDE_THINNING, "bool", False,
                  "Send all LOD score data to the KDE (may dramatically increase runtime)."),
         FlagSpec(ARG_ENGINE, "string", "auto",
-                 "Compute engine: exact (f64, byte-identical to GARLIC), fast (TPU f32), auto."),
+                 "Compute engine: exact (f64, byte-identical to GARLIC), fast (device f32; auto picks it on a GPU), auto."),
         FlagSpec(ARG_SEED, "int", -1,
                  "RNG seed for subsampling/resampling; -1 uses a time-based seed "
                  "(matching the reference's non-reproducible default)."),

@@ -3,7 +3,7 @@
 The reference keeps per-chromosome pointer-soup structs (HapData/MapData/
 FreqData/GenoLikeData, src/garlic-data.h:32-108) laid out [loci][individuals].
 Here everything is a dense numpy array laid out [individuals, loci] — the
-individual axis is the data-parallel shard axis on a TPU mesh, and the locus
+individual axis is the data-parallel shard axis on a device mesh, and the locus
 axis is the contiguous vector axis the kernels tile over.
 """
 
@@ -130,8 +130,7 @@ class ChromData:
     def gl(self) -> Optional[np.ndarray]:
         """TGLS per-genotype error matrix [I, L] f64.  When the native
         TGLS reader stored the dictionary form (gl_codes + gl_lut), the
-        double matrix materializes lazily here — the fast TPU path ships
-        the codes instead and never reads this."""
+        double matrix materializes lazily here."""
         if self._gl is None and self.gl_codes is not None:
             self._gl = self.gl_lut[self.gl_codes]
         return self._gl

@@ -96,7 +96,7 @@ def _apply(c: ChromData, keep: np.ndarray) -> ChromData:
         freq=c.freq[idx],
         first_copy=_compact(c.first_copy, keep),
         # dictionary-form TGLS: compact the u8 codes, never materialize
-        # the f64 matrix (the fast TPU path ships codes directly)
+        # the f64 matrix (it materializes lazily where needed)
         gl=_compact(c._gl, keep) if c.gl_codes is None else None,
         gl_codes=_compact(c.gl_codes, keep),
         gl_lut=c.gl_lut,

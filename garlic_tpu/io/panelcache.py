@@ -52,7 +52,7 @@ def cache_path(tpedfile: str) -> str:
 
 def _collect_arrays(chroms: List[dict], nind: int):
     """The per-chromosome array dict the container serializes."""
-    from ..ops.pallas_lod import pack_genotypes
+    from ..ops.device_cache import pack_genotypes
 
     arrays = {}
     for i, c in enumerate(chroms):

@@ -74,8 +74,7 @@ def read_tgls(filename: str, chroms: List[ChromData], expected_ind: int,
     Prefers the native reader (chunked gz + parallel tokenize): GQ/PL-
     style files with <= 255 distinct tokens come back as a u8 code
     matrix + converted-value lut (`gl_codes`/`gl_lut`) — 8x smaller than
-    the double matrix, shipped to the TPU verbatim — with the f64 `gl`
-    matrix materializing lazily for consumers that need it.  Falls back
+    the double matrix — with the f64 `gl` matrix materializing lazily for consumers that need it.  Falls back
     to the pure-Python line reader when the native library is absent.
 
     With panel_cache=True (--tpu-panel-cache) the parse result also

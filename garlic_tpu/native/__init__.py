@@ -17,10 +17,8 @@ from .build import (  # noqa: F401
     lod_windows_exact_tbl_native,
     lod_windows_exact_thin_native,
     native_available,
-    pack_2bit_padded_native,
     parse_tgls_native,
     parse_tped_native,
-    pack_base3_native,
     repad_2bit_native,
     set_native_threads,
     unpack_2bit_native,

@@ -134,11 +134,6 @@ def _load():
         lib.gt_hash128.restype = None
         lib.gt_hash128.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                    ctypes.POINTER(ctypes.c_uint64)]
-        lib.gt_pack_2bit_padded.restype = None
-        lib.gt_pack_2bit_padded.argtypes = [
-            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.c_int64]
         lib.gt_filter_pack_2bit.restype = ctypes.c_int64
         lib.gt_filter_pack_2bit.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
@@ -152,15 +147,6 @@ def _load():
         lib.gt_unpack_2bit.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int8)]
-        lib.gt_count_missing_rows_2bit.restype = None
-        lib.gt_count_missing_rows_2bit.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
-        lib.gt_pack_base3.restype = None
-        lib.gt_pack_base3.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)]
         lib.gt_set_threads.restype = None
         lib.gt_set_threads.argtypes = [ctypes.c_int]
         lib.gt_get_max_threads.restype = ctypes.c_int
@@ -293,34 +279,6 @@ def repad_2bit_native(packed: np.ndarray, I2: int, rb2: int):
         p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), I, rb,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), I2, rb2)
     return out
-
-
-def pack_base3_native(packed: np.ndarray, L: int):
-    """2-bit [I, rb] -> (base-3 [I, ceil(L/5)] u8, missing-exception flat
-    indices i32 sorted ascending).  None if the lib is unavailable or
-    I*L would overflow the i32 exception index space."""
-    lib = _load()
-    if lib is None:
-        return None
-    p = np.ascontiguousarray(packed, dtype=np.uint8)
-    I, rb = p.shape
-    if I * L >= 2**31:
-        return None
-    counts = np.empty(I, dtype=np.int64)
-    lib.gt_count_missing_rows_2bit(
-        p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), I, rb, L,
-        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-    row_off = np.zeros(I + 1, dtype=np.int64)
-    np.cumsum(counts, out=row_off[1:])
-    nb5 = -(-L // 5)
-    out = np.empty((I, nb5), dtype=np.uint8)
-    exc = np.empty(max(int(row_off[-1]), 1), dtype=np.int32)
-    lib.gt_pack_base3(
-        p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), I, rb, L,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), nb5,
-        exc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        row_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-    return out, exc[:int(row_off[-1])]
 
 
 def unpack_2bit_native(packed: np.ndarray, L: int):
@@ -466,24 +424,6 @@ def parse_tped_native(path: str, missing: str, want_fc: bool = True,
         return out
     finally:
         lib.gt_tped_close(h)
-
-
-def pack_2bit_padded_native(geno: np.ndarray, I2: int, L2: int):
-    """Fused pad+pack: [I, L] int8 (rows may be strided views) ->
-    [I2, L2/4] u8 2-bit codes with missing padding; None if unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    I, L = geno.shape
-    if geno.strides[1] != 1:
-        geno = np.ascontiguousarray(geno)
-    row_stride = geno.strides[0]
-    out = np.empty((I2, L2 // 4), dtype=np.uint8)
-    lib.gt_pack_2bit_padded(
-        geno.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), I, L,
-        row_stride,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), I2, L2 // 4)
-    return out
 
 
 def covered_pack_native(win: np.ndarray, winsize: int, cutoff: float,

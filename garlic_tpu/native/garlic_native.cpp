@@ -258,61 +258,6 @@ void gt_repad_2bit(const uint8_t *in, int64_t I, int64_t rb,
   }
 }
 
-// Per-row missing-code (3) counts in a packed [I, rb] 2-bit matrix,
-// valid lanes [0, L) only.  Feeds the base-3 shipping path: the caller
-// prefix-sums these into exception-array offsets.
-void gt_count_missing_rows_2bit(const uint8_t *packed, int64_t I,
-                                int64_t rb, int64_t L, int64_t *row_counts) {
-#pragma omp parallel for schedule(static)
-  for (int64_t i = 0; i < I; i++) {
-    const uint8_t *p = packed + i * rb;
-    int64_t n = 0;
-    int64_t nb_full = L / 4;
-    for (int64_t k = 0; k < nb_full; k++) {
-      // code 3 = both bits of a lane set
-      uint8_t m = (uint8_t)(p[k] & (p[k] >> 1) & 0x55);
-      n += __builtin_popcount(m);
-    }
-    for (int64_t l = nb_full * 4; l < L; l++)
-      n += ((p[l >> 2] >> ((l & 3) * 2)) & 3) == 3;
-    row_counts[i] = n;
-  }
-}
-
-// 2-bit -> base-3 repack (5 genotype codes per byte, 1.6 bits/code vs
-// 2.0): the H2D link, not HBM, bounds the fast engine, so 20% fewer
-// bytes is 20% less critical-path transfer.  Missing codes (3) are
-// emitted as digit 0 and recorded as flat row-major exceptions
-// (i*L + l, int32 — caller guarantees I*L < 2^31) at exc + row_off[i];
-// the device decode scatter-ORs them back to code 3.  Tail lanes of the
-// final byte (past L) emit digit 0 and are NOT exceptions (the device
-// pads to the kernel bucket with code 3 itself).
-void gt_pack_base3(const uint8_t *packed, int64_t I, int64_t rb, int64_t L,
-                   uint8_t *out, int64_t nb5, int32_t *exc,
-                   const int64_t *row_off) {
-#pragma omp parallel for schedule(static)
-  for (int64_t i = 0; i < I; i++) {
-    const uint8_t *p = packed + i * rb;
-    uint8_t *o = out + i * nb5;
-    int32_t *e = exc + row_off[i];
-    static const uint16_t pw[5] = {1, 3, 9, 27, 81};
-    for (int64_t j = 0; j < nb5; j++) {
-      uint16_t acc = 0;
-      int64_t base = j * 5;
-      int64_t lim = base + 5 < L ? base + 5 : L;
-      for (int64_t l = base; l < lim; l++) {
-        uint8_t c = (uint8_t)((p[l >> 2] >> ((l & 3) * 2)) & 3);
-        if (c == 3) {
-          *e++ = (int32_t)(i * L + l);
-          c = 0;
-        }
-        acc = (uint16_t)(acc + c * pw[l - base]);
-      }
-      o[j] = (uint8_t)acc;
-    }
-  }
-}
-
 // One-pass 2-bit -> int8 genotype unpack (code 3 -> -9).  The numpy
 // shift/stack/where chain allocates several 100s-of-MB temporaries whose
 // fresh-page faults dominate panel-cache loads under this VM.
@@ -811,8 +756,8 @@ void gt_tped_close(void *hv) { delete (TpedHandle *)hv; }
 // distinct tokens of <= 8 characters (GQ/PL phred columns in practice:
 // a handful of small integers repeated hundreds of millions of times):
 // a [rows][nind] u8 code matrix plus a parsed-once lut of raw doubles —
-// 8x smaller than the double matrix, and the codes ship to the TPU
-// verbatim where a K-way select rebuilds the error plane.  Equal tokens
+// 8x smaller than the double matrix, which materializes lazily (lut
+// gather) only where a consumer needs it.  Equal tokens
 // parse to equal doubles, so mapping via tokens is bit-identical to
 // parsing every token.  Files that exceed the dictionary (arbitrary GL
 // floats) fall back to a full double matrix, converted mid-parse.
@@ -1601,46 +1546,6 @@ void gt_covered_pack(const double *win, int64_t I, int64_t L, int64_t W,
       if (w[s] >= cutoff) cnt++;
       if (s >= W && w[s - W] >= cutoff) cnt--;
       if ((double)cnt >= threshold) row[s >> 3] |= (uint8_t)(1u << (s & 7));
-    }
-  }
-}
-
-// Fused pad+pack: read an [I][L] int8 genotype matrix (row stride in
-// elements, so filtered [:, :nkeep] views work) and emit the padded
-// [I2][Lq] 2-bit matrix directly (rows >= I and columns >= L become the
-// missing code 3).  Replaces a 115MB staging buffer fill + copy + pack.
-void gt_pack_2bit_padded(const int8_t *src, int64_t I, int64_t L,
-                         int64_t row_stride, uint8_t *dst, int64_t I2,
-                         int64_t Lq) {
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-  for (int64_t i = 0; i < I2; i++) {
-    uint8_t *row = dst + i * Lq;
-    if (i >= I) {
-      memset(row, 0xFF, (size_t)Lq);  // all-missing padding rows
-      continue;
-    }
-    const int8_t *s = src + i * row_stride;
-    int64_t full = L / 4;
-    for (int64_t q = 0; q < full; q++) {
-      uint8_t b = 0;
-      for (int k = 0; k < 4; k++) {
-        int8_t v = s[q * 4 + k];
-        b |= (uint8_t)((v < 0 ? 3u : (uint8_t)v) << (2 * k));
-      }
-      row[q] = b;
-    }
-    if (full < Lq) {
-      // partial quad at the L boundary, then missing padding
-      uint8_t b = 0;
-      for (int k = 0; k < 4; k++) {
-        int64_t l = full * 4 + k;
-        uint8_t c = l < L ? (s[l] < 0 ? 3u : (uint8_t)s[l]) : 3u;
-        b |= (uint8_t)(c << (2 * k));
-      }
-      row[full] = b;
-      if (full + 1 < Lq) memset(row + full + 1, 0xFF, (size_t)(Lq - full - 1));
     }
   }
 }

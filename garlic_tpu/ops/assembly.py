@@ -29,14 +29,14 @@ import numpy as np
 from .lod import in_gap, pair_breaks
 
 def _asm_timing() -> bool:
-    # read per call (not at import), matching GT_PARSE_TIMING /
-    # GT_SHIP_TIMING: toggling between in-process runs must work
+    # read per call (not at import), matching GT_PARSE_TIMING:
+    # toggling between in-process runs must work
     return os.environ.get("GT_ASM_TIMING") is not None
 
 
 def _tmark(label: str, t0: float) -> float:
     """GT_ASM_TIMING=1 stderr stage timings (same convention as
-    GT_PARSE_TIMING / GT_SHIP_TIMING)."""
+    GT_PARSE_TIMING)."""
     t1 = time.perf_counter()
     if _asm_timing():
         import sys
@@ -281,18 +281,16 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
     (_repair_rows).  exact_cover(ci, rows) -> bool [len(rows), nloci]
     exact coverage; exact_window(ci, rows, wins, sides) -> bool flip
     mask (f64 decision differs from the device's f32 one)."""
-    from .device_win import (covered_dispatch, is_device_win, is_fused_cov,
-                             is_lazy_win)
+    from .device_win import covered_dispatch, is_device_win, is_lazy_win
     threshold = overlap_threshold(overlap_frac, winsize)
     nind = len(ind_ids)
     # enqueue every resident chromosome's coverage kernels up front so
     # chromosome N+1's device compute overlaps chromosome N's host-side
     # fetch + run scan (LazyWin stays sequential: it rematerializes to
-    # bound HBM); FusedCov entries run the fused Phase-I+coverage Pallas
-    # program here (pinned-cutoff runs: the window matrix never exists)
+    # bound device memory)
     t0 = time.perf_counter()
     handles = [covered_dispatch(w, cutoff, winsize, threshold, tie_delta)
-               if is_device_win(w) or is_fused_cov(w) else None
+               if is_device_win(w) else None
                for w in win_by_chr]
     t0 = _tmark("dispatch-all", t0)
     per_chrom = []
@@ -306,7 +304,7 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
                                   exact_window=exact_window, ci=ci)
         if runs is None:
             w = win_by_chr[ci]
-            if is_lazy_win(w) or is_fused_cov(w):
+            if is_lazy_win(w):
                 w = w.make()
             covered = None
             if is_device_win(w):

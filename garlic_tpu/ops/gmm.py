@@ -134,8 +134,7 @@ def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
     sufficient statistics psum'd across every chip per iteration
     (parallel.engine.fit_gmm_sharded), the production Phase-IV path for
     --tpu-mesh runs.  device=True (fast engine, no mesh): the same
-    on-device EM over a trivial 1x1 mesh — fit_gmm_sharded degrades to
-    the host EM itself when the backend cannot run f64 programs."""
+    on-device EM over a trivial 1x1 mesh."""
     from .brent import find_boundary
     lengths = np.asarray(lengths, dtype=np.float64)
     var = float(np.var(lengths, ddof=1))
@@ -153,11 +152,8 @@ def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
     # (BASELINE.md).
     auto_1x1 = False
     if mesh is None and device and lengths.shape[0] >= 4096:
-        try:
-            mesh = _device_mesh_1x1()
-            auto_1x1 = True
-        except Exception:
-            mesh = None
+        mesh = _device_mesh_1x1()
+        auto_1x1 = True
     if mesh is not None:
         from ..parallel.engine import fit_gmm_sharded
         res = fit_gmm_sharded(lengths, k, w0, mu0, var0, mesh,

@@ -83,9 +83,8 @@ def _lod_terms_block(geno_blk, freq_blk, error):
 
 def _window_sums(a, winsize: int):
     """VALID sliding-window sums along the last axis ([I, N] -> [I, N-W+1])
-    via exact shifted-add doubling (true f32 VPU adds — the conv lowering
-    accumulates through the MXU in bf16 on TPU, losing ~3 digits near the
-    cutoff)."""
+    via exact shifted-add doubling (true f32 adds — no convolution whose
+    lowering may accumulate in reduced precision near the cutoff)."""
     from ..ops.lod import window_sums_exact
     return window_sums_exact(a, winsize)
 
@@ -218,30 +217,13 @@ def allele_freq_counts_sharded(num, den, mesh):
 
     from .multihost import to_host
     gs = NamedSharding(mesh, P(AXIS_DP, None, AXIS_SP))
-    x64 = jax.enable_x64
-    try:
-        with x64(True):
-            if p == 1:
-                glob = jax.device_put(local, gs)
-            else:
-                glob = jax.make_array_from_process_local_data(gs, local)
-            out = to_host(fn(glob))
-        return np.asarray(out, dtype=np.float64)[:L]
-    except Exception as e:
-        # f64 SPMD unavailable on this backend: deterministic host merge
-        # (identical on every process — allgather is rank-ordered)
-        import sys
-        print(f"[garlic-tpu] sharded freq psum unavailable "
-              f"({type(e).__name__}); host allgather merge", file=sys.stderr)
-        from jax.experimental import multihost_utils
-        planes = np.stack([num, den], axis=0)[None]  # [1, 2, L]
-        with jax.enable_x64(True):  # allgather downcasts f64 otherwise
-            allp = np.asarray(multihost_utils.process_allgather(
-                planes, tiled=True))
-        num_g = allp[:, 0, :].sum(axis=0)
-        den_g = allp[:, 1, :].sum(axis=0)
-        with np.errstate(invalid="ignore", divide="ignore"):
-            return np.where(den_g > 0, num_g / den_g, 0.0)
+    with jax.enable_x64(True):
+        if p == 1:
+            glob = jax.device_put(local, gs)
+        else:
+            glob = jax.make_array_from_process_local_data(gs, local)
+        out = to_host(fn(glob))
+    return np.asarray(out, dtype=np.float64)[:L]
 
 
 _gauss_mesh_cache = {}
@@ -317,11 +299,10 @@ def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
     iteration/convergence structure, src/gmm.cpp:276-443).
 
     Runs in float64 (the |delta loglik| <= 1e-5 convergence test is
-    unrepresentable in f32 at WGS sample counts); falls back to the host
-    EM if the backend cannot execute f64 (bare TPU without x64).
+    unrepresentable in f32 at WGS sample counts).
     Returns ops.gmm.GMMResult, matching fit_gmm's semantics bit-for-bit up
     to psum reduction order."""
-    from ..ops.gmm import GMMResult, fit_gmm
+    from ..ops.gmm import GMMResult
 
     import jax
     import jax.numpy as jnp
@@ -409,32 +390,19 @@ def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
         print(f"Begin GMM estimation with k = {k} Gaussians...",
               file=sys.stderr)
     ss = NamedSharding(mesh, P((AXIS_DP, AXIS_SP)))
-    x64 = jax.enable_x64  # outside the try: an API change must SURFACE,
-    #                       not silently demote every run to the host EM
-    try:
-        with x64(True):
-            w, mu, var, ll, it, done = fn(
-                jax.device_put(xp, ss), jax.device_put(wp, ss),
-                jnp.asarray(w0, dtype=jnp.float64),
-                jnp.asarray(mu0, dtype=jnp.float64),
-                jnp.asarray(var0, dtype=jnp.float64),
-                jnp.int32(max_iter), jnp.float64(precision))
-            w = np.asarray(w, dtype=np.float64)
-            mu = np.asarray(mu, dtype=np.float64)
-            var = np.asarray(var, dtype=np.float64)
-            ll = float(ll)
-            it = int(it)
-            done = bool(done)
-    except Exception as e:
-        # backend cannot run the f64 SPMD program (e.g. a TPU generation
-        # without f64 emulation): the host EM is bit-equivalent, just
-        # unsharded — say so instead of hiding it
-        import sys
-        print(f"[garlic-tpu] sharded GMM unavailable on this backend "
-              f"({type(e).__name__}); using host EM", file=sys.stderr)
-        return fit_gmm(x, k, np.asarray(w0), np.asarray(mu0),
-                       np.asarray(var0), max_iter=max_iter,
-                       precision=precision, verbose=False)
+    with jax.enable_x64(True):
+        w, mu, var, ll, it, done = fn(
+            jax.device_put(xp, ss), jax.device_put(wp, ss),
+            jnp.asarray(w0, dtype=jnp.float64),
+            jnp.asarray(mu0, dtype=jnp.float64),
+            jnp.asarray(var0, dtype=jnp.float64),
+            jnp.int32(max_iter), jnp.float64(precision))
+        w = np.asarray(w, dtype=np.float64)
+        mu = np.asarray(mu, dtype=np.float64)
+        var = np.asarray(var, dtype=np.float64)
+        ll = float(ll)
+        it = int(it)
+        done = bool(done)
     if not (np.all(np.isfinite(mu)) and np.all(np.isfinite(var))):
         raise FloatingPointError(
             "GMM component collapsed (non-finite parameters)")

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is pthreads over locus ranges inside one
 process (src/garlic-roh.cpp:184-194, src/garlic-data.cpp:404-414).  The
-TPU-native scaling story replaces that with a 2-D logical mesh:
+device scaling story replaces that with a 2-D logical mesh:
 
 * ``dp`` — data parallelism over **individuals** (the primary shard axis:
   every per-individual computation in the pipeline is embarrassingly

@@ -3,18 +3,15 @@
 The reference is a single process (SURVEY.md §2: no multi-process/
 multi-node story).  Scaling past one host uses the standard JAX
 multi-controller runtime: every host runs the same program,
-`jax.distributed.initialize` wires the hosts over DCN, and the
-("dp", "sp") mesh in mesh.py spans all hosts' devices — shardings then
-ride ICI within a slice and DCN across hosts automatically.
+`jax.distributed.initialize` wires the hosts together, and the
+("dp", "sp") mesh in mesh.py spans all hosts' devices — collectives run
+over the intra-host interconnect and the cluster network automatically.
 
 Typical launch (one process per host):
 
     GARLIC_TPU_COORD=host0:8476 GARLIC_TPU_NUM_PROCS=4 \\
     GARLIC_TPU_PROC_ID=$SLURM_PROCID \\
     python -m garlic_tpu --tped ... --tpu-engine fast --tpu-mesh 16x2
-
-On Cloud TPU VMs the three env vars can be omitted —
-`jax.distributed.initialize()` autodetects the slice topology.
 
 Host-sharded input: on eligible runs (fast engine + mesh, unweighted —
 TGLS included) the pipeline computes this host's genotype column range

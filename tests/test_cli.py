@@ -141,17 +141,17 @@ def test_oracle_rejects_same_flags(oracle_bin, tmp_path):
 
 
 def test_engine_auto_resolution(monkeypatch):
-    """--tpu-engine auto resolves to the TPU fast engine when a TPU
-    backend is attached (round 5: the tie patrol makes fast == exact BED
-    by construction and Phase II pools exact f64 samples on both
-    engines) and to exact everywhere else."""
-    import jax
-
+    """--tpu-engine auto resolves to the fast device engine when a GPU is
+    attached (the tie patrol makes fast == exact BED by construction and
+    Phase II pools exact f64 samples on both engines) and to exact on a
+    CPU-only host; the decision is runtime.accelerator's."""
+    from garlic_tpu import runtime
     from garlic_tpu.pipeline import _resolve_engine
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    assert _resolve_engine("auto") == "exact"  # this host: CPU backend
+    monkeypatch.setattr(runtime, "accelerator", lambda: "gpu")
     assert _resolve_engine("auto") == "fast"
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    monkeypatch.setattr(runtime, "accelerator", lambda: "cpu")
     assert _resolve_engine("auto") == "exact"
     assert _resolve_engine("fast") == "fast"
     assert _resolve_engine("exact") == "exact"

@@ -188,70 +188,3 @@ def test_tie_patrol_block_cap_overflow_degrades_to_rows():
     packed, sus, susw = covered_packed(dw, cutoff, W, 1.0, tie_delta=1e-3)
     assert sus[:I].all()
     assert susw is None  # block cap overflow -> row-level repair
-
-
-def test_fused_coverage_bed_identical(tmp_path, monkeypatch):
-    """The fused Phase-I+coverage Pallas dispatch (pinned-cutoff fast
-    runs) must reproduce the split path's BED byte-for-byte — window-sum
-    f32 values, covered bits, and the tie-patrol suspect set are all
-    bit-identical by construction (interpret-mode kernel on CPU)."""
-    import sys
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from util import make_panel, read_text, run_ours, write_tped
-
-    panel = make_panel(nind=35, nloci_per_chr=(5000, 4000), seed=17,
-                      big_gap_every=700)
-    wd = str(tmp_path)
-    write_tped(panel, f"{wd}/p.tped.gz", f"{wd}/p.tfam")
-    args = ["--tped", "p.tped.gz", "--tfam", "p.tfam", "--build", "hg18",
-            "--winsize", "40", "--error", "0.001", "--kde-subsample", "0",
-            "--lod-cutoff", "1.3", "--size-bounds", "300000", "800000",
-            "--tpu-engine", "fast"]
-    assert run_ours(wd, args + ["--out", "split"]) == 0
-    monkeypatch.setenv("GARLIC_TPU_FUSED_INTERPRET", "1")
-    from garlic_tpu.ops import device_win as dw
-    seen = []
-    orig = dw._dispatch_fused
-
-    def spy(*a, **k):
-        r = orig(*a, **k)
-        seen.append(r is not None)
-        return r
-
-    monkeypatch.setattr(dw, "_dispatch_fused", spy)
-    assert run_ours(wd, args + ["--out", "fused"]) == 0
-    assert seen and all(seen), "fused dispatch did not engage"
-    assert read_text(f"{wd}/split.roh.bed") == read_text(f"{wd}/fused.roh.bed")
-
-
-def test_fused_coverage_tgls_bed_identical(tmp_path, monkeypatch):
-    """The TGLS (dictionary-codes) fused Phase-I+coverage dispatch must
-    reproduce the split path's BED byte-for-byte."""
-    import sys
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from util import make_panel, read_text, run_ours, write_tgls, write_tped
-
-    panel = make_panel(nind=30, nloci_per_chr=(4000,), seed=23)
-    wd = str(tmp_path)
-    write_tped(panel, f"{wd}/p.tped.gz", f"{wd}/p.tfam")
-    write_tgls(panel, f"{wd}/p.tgls.gz", gl_type="GQ")
-    args = ["--tped", "p.tped.gz", "--tfam", "p.tfam",
-            "--tgls", "p.tgls.gz", "--gl-type", "GQ",
-            "--build", "hg18", "--winsize", "40", "--error", "0.001",
-            "--kde-subsample", "0", "--lod-cutoff", "1.3",
-            "--size-bounds", "300000", "800000", "--tpu-engine", "fast"]
-    assert run_ours(wd, args + ["--out", "split"]) == 0
-    monkeypatch.setenv("GARLIC_TPU_FUSED_INTERPRET", "1")
-    from garlic_tpu.ops import device_win as dw
-    seen = []
-    orig = dw._dispatch_fused
-
-    def spy(*a, **k):
-        r = orig(*a, **k)
-        seen.append(r is not None)
-        return r
-
-    monkeypatch.setattr(dw, "_dispatch_fused", spy)
-    assert run_ours(wd, args + ["--out", "fused"]) == 0
-    assert seen and all(seen), "TGLS fused dispatch did not engage"
-    assert read_text(f"{wd}/split.roh.bed") == read_text(f"{wd}/fused.roh.bed")

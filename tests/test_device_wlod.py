@@ -113,6 +113,8 @@ def test_wlod_table_gather_bitwise_equals_score_ship():
     any difference is a table/gather bug, not rounding."""
     import jax.numpy as jnp
 
+    from garlic_tpu.ops.device_cache import _packed_2bit
+
     for seed in range(4):
         c = _chrom(I=11, L=257 + 13 * seed, seed=seed)
         I, L = c.genotypes.shape
@@ -125,7 +127,7 @@ def test_wlod_table_gather_bitwise_equals_score_ship():
         tp[:, :L] = ((lod_table(c.freq, 0.001) * nomut[None, :])
                      * norec[None, :]).astype(np.float32)
         got = np.asarray(device_wlod._wlod_score_from_table(
-            jnp.asarray(device_wlod._packed_2bit(c)), jnp.asarray(tp),
+            jnp.asarray(_packed_2bit(c)), jnp.asarray(tp),
             I, L, L2))
         np.testing.assert_array_equal(got[:, :L], old)
         assert np.all(got[:, L:] == 0.0)

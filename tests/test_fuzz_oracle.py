@@ -573,44 +573,3 @@ def test_fuzz_weighted_auto_cutoff(oracle_bin, tmp_path, seed):
     assert a == b, ("BED differs", args,
                     [(i, x, y) for i, (x, y) in enumerate(
                         zip(a.splitlines(), b.splitlines())) if x != y][:5])
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("seed",
-                         _seed_range("GARLIC_FUZZ_FUSED_SEEDS", "0:3"))
-def test_fuzz_fused_coverage_equals_split(tmp_path, seed):
-    """The fused Phase-I+coverage Pallas kernel (pinned-cutoff fast
-    runs; GARLIC_TPU_FUSED_INTERPRET forces it through the interpret
-    backend on CPU) must reproduce the split path's BED byte-for-byte
-    across random shapes/winsizes/cutoffs."""
-    rng = np.random.default_rng(55_000 + seed)
-    panel_kw, args = _draw_config(rng)
-    if "--lod-cutoff" not in args:
-        args += ["--lod-cutoff", f"{rng.uniform(0.3, 2.5):.4f}"]
-    if "--size-bounds" not in args:
-        args += ["--size-bounds", "300000", "900000"]
-    gl_type = None
-    if rng.random() < 0.3:  # dictionary-TGLS fused variant
-        gl_type = str(rng.choice(["GQ", "PL"]))
-        args += ["--tgls", "f.tgls.gz", "--gl-type", gl_type]
-    panel = make_panel(**panel_kw)
-    wd = str(tmp_path)
-    write_tped(panel, f"{wd}/f.tped.gz", f"{wd}/f.tfam")
-    if gl_type is not None:
-        from .util import write_tgls
-        write_tgls(panel, f"{wd}/f.tgls.gz", gl_type=gl_type,
-                   seed=int(rng.integers(0, 2**31)))
-    args = ["--tped", "f.tped.gz", "--tfam", "f.tfam",
-            "--tpu-engine", "fast"] + args
-    rc1 = run_ours(wd, args + ["--out", "split"])
-    os.environ["GARLIC_TPU_FUSED_INTERPRET"] = "1"
-    try:
-        rc2 = run_ours(wd, args + ["--out", "fused"])
-    finally:
-        os.environ.pop("GARLIC_TPU_FUSED_INTERPRET", None)
-    assert (rc1 == 0) == (rc2 == 0), (args, rc1, rc2)
-    if rc1 != 0:
-        return
-    a = read_text(os.path.join(wd, "split.roh.bed"))
-    b = read_text(os.path.join(wd, "fused.roh.bed"))
-    assert a == b, ("fused BED differs from split", args)

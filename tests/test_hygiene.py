@@ -137,7 +137,7 @@ def test_covered_edges_equivalent(monkeypatch):
 def test_unpack_2bit_roundtrip():
     """Native 2-bit unpack (panel-cache load path) inverts pack exactly."""
     from garlic_tpu.native import native_available, unpack_2bit_native
-    from garlic_tpu.ops.pallas_lod import pack_genotypes
+    from garlic_tpu.ops.device_cache import pack_genotypes
 
     if not native_available():
         pytest.skip("native lib unavailable")
@@ -151,109 +151,14 @@ def test_unpack_2bit_roundtrip():
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_base3_ship_roundtrip(seed):
-    """gt_pack_base3 + device decode must reproduce the exact 2-bit
-    kernel input gt_repad_2bit produces (tails, pad rows, and missing
-    exceptions included)."""
-    import jax.numpy as jnp
-
-    from garlic_tpu.native import (native_available, pack_base3_native,
-                                   repad_2bit_native)
-    from garlic_tpu.ops.pallas_lod import _decode_base3, pack_genotypes
-
-    if not native_available():
-        pytest.skip("native lib unavailable")
-    rng = np.random.default_rng(seed)
-    I = int(rng.integers(1, 40))
-    L = int(rng.integers(5, 3000))
-    g = rng.integers(0, 3, size=(I, L)).astype(np.int8)
-    g[rng.random((I, L)) < 0.01] = -9
-    Lp = -(-L // 4) * 4
-    gp = np.full((I, Lp), -9, np.int8)
-    gp[:, :L] = g
-    packed = pack_genotypes(gp)
-    I2 = -(-I // 8) * 8
-    L2 = (-(-(L + 200) // 128)) * 128
-    want = repad_2bit_native(packed, I2, L2 // 4)
-    r = pack_base3_native(packed, L)
-    assert r is not None
-    b3, exc = r
-    assert np.all(np.diff(exc) > 0)  # sorted, unique
-    ecap = max(64, int(exc.size) + 7)
-    ep = np.full(ecap, -1, np.int32)
-    ep[:exc.size] = exc
-    got = np.asarray(_decode_base3(jnp.asarray(b3), jnp.asarray(ep),
-                                   I, L, I2, L2))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_prefetch_ship_stash_contract():
-    """prefetch_ship keys the stash exactly as Phase I will look it up
-    (same filter, same content key), and the stashed payload decodes to
-    the kernel input the non-prefetch path builds."""
-    import jax.numpy as jnp
-
-    from garlic_tpu.core.types import ChromData
-    from garlic_tpu.io import filters
-    from garlic_tpu.native import native_available, repad_2bit_native
-    from garlic_tpu.ops import pallas_lod as pl
-
-    if not native_available():
-        pytest.skip("native lib unavailable")
-    rng = np.random.default_rng(5)
-    I, L = 17, 2503
-    g = rng.integers(0, 3, size=(I, L)).astype(np.int8)
-    g[rng.random((I, L)) < 0.005] = -9
-    Lp = -(-L // 4) * 4
-    gp = np.full((I, Lp), -9, np.int8)
-    gp[:, :L] = g
-    freq = rng.uniform(0.01, 0.99, L)
-    freq[::37] = 1.0  # monomorphic: filtered
-    c = ChromData(chrom="1", positions=np.arange(L) * 1000 + 1, gpos=np.zeros(L),
-                  locus_names=[f"r{i}" for i in range(L)],
-                  alleles=np.array(["A"] * L), genotypes=None, freq=freq,
-                  first_copy=None, gl=None,
-                  geno2b=pl.pack_genotypes(gp))
-    for mode in ("base3", "2bit"):
-        os.environ["GARLIC_TPU_SHIP"] = mode
-        try:
-            pl.clear_ship_stash()
-            pl.prefetch_ship([c])
-            pl._ship_thread.join(timeout=60)  # upload runs on a worker
-            assert len(pl._ship_stash) == 1
-            # Phase I side: the pipeline filter produces the packed matrix
-            # whose content key must hit the stash
-            fchroms, nkeep = filters.filter_monomorphic([c])
-            fc = fchroms[0]
-            key = pl._ship_key(fc.geno2b, fc.nloci)
-            hit = pl._ship_stash.pop(key, None)
-            assert hit is not None, \
-                f"stash key mismatch between prefetch and Phase I ({mode})"
-            assert hit[0] == ("b3" if mode == "base3" else "2b")
-            I2 = -(-I // 8) * 8
-            L2 = (-(-(fc.nloci + 300) // 128)) * 128
-            if hit[0] == "b3":
-                got = np.asarray(pl._decode_base3(hit[1], hit[2], I,
-                                                  fc.nloci, I2, L2))
-            else:
-                got = np.asarray(pl._decode_2bit(hit[1], I, fc.nloci,
-                                                 I2, L2))
-            want = repad_2bit_native(fc.geno2b, I2, L2 // 4)
-            np.testing.assert_array_equal(got, want)
-        finally:
-            os.environ.pop("GARLIC_TPU_SHIP", None)
-    pl.clear_ship_stash()
-
-
-@pytest.mark.parametrize("seed", range(3))
 def test_2bit_ship_roundtrip(seed):
     """_decode_2bit (raw-byte ship + device repad) must reproduce the
-    exact 2-bit kernel input gt_repad_2bit produces, including ragged
-    last-byte tails and pad rows."""
+    exact 2-bit Phase-I input gt_repad_2bit produces, including ragged
+    last-byte tails."""
     import jax.numpy as jnp
 
     from garlic_tpu.native import native_available, repad_2bit_native
-    from garlic_tpu.ops.pallas_lod import _decode_2bit, pack_genotypes
+    from garlic_tpu.ops.device_cache import _decode_2bit, pack_genotypes
 
     if not native_available():
         pytest.skip("native lib unavailable")
@@ -266,69 +171,76 @@ def test_2bit_ship_roundtrip(seed):
     gp = np.full((I, Lp), -9, np.int8)
     gp[:, :L] = g
     packed = pack_genotypes(gp)
-    I2 = -(-I // 8) * 8
     L2 = (-(-(L + 200) // 128)) * 128
-    want = repad_2bit_native(packed, I2, L2 // 4)
-    got = np.asarray(_decode_2bit(jnp.asarray(packed), I, L, I2, L2))
+    want = repad_2bit_native(packed, I, L2 // 4)
+    got = np.asarray(_decode_2bit(jnp.asarray(packed), L, L2))
     np.testing.assert_array_equal(got, want)
+
+
+def _packed_chrom(packed, L, freq, digest=None):
+    from garlic_tpu.core.types import ChromData
+    return ChromData(chrom="chr1",
+                     positions=np.arange(1, L + 1, dtype=np.int64) * 1000,
+                     gpos=np.zeros(L), locus_names=[f"rs{i}" for i in range(L)],
+                     alleles=np.array(["A"] * L), genotypes=None,
+                     geno2b=packed, freq=freq, geno2b_digest=digest)
 
 
 def test_device_panel_cache_hit_and_eviction():
     """The device-resident panel cache returns identical Phase-I windows
     on a repeat run (content-addressed, no re-upload), never aliases
     distinct panels, and evicts LRU entries to stay under its budget."""
+    from garlic_tpu.centromeres import Centromere
+    from garlic_tpu.logger import RunLog
     from garlic_tpu.native import native_available
-    from garlic_tpu.ops import pallas_lod as pl
+    from garlic_tpu.ops import device_cache as dc
+    from garlic_tpu.ops.device_win import lod_windows_device
 
     if not native_available():
         pytest.skip("native lib unavailable")
     rng = np.random.default_rng(9)
     I, L = 9, 1777
     Lp = -(-L // 4) * 4
+    centro = Centromere("hg18", "none", "none", RunLog())
 
     def mk_panel(seed):
         r = np.random.default_rng(seed)
         g = r.integers(0, 3, size=(I, L)).astype(np.int8)
         gp = np.full((I, Lp), -9, np.int8)
         gp[:, :L] = g
-        return pl.pack_genotypes(gp)
+        return dc.pack_genotypes(gp)
+
+    freq = rng.uniform(0.05, 0.95, L)
+
+    def windows(packed, W=60):
+        return lod_windows_device(_packed_chrom(packed, L, freq), centro, W,
+                                  0.001, 10**9, False)
 
     packed = mk_panel(1)
-    freq = rng.uniform(0.05, 0.95, L)
-    miss = np.zeros(L - 60 + 1, dtype=bool)
-    pl.clear_ship_stash()
-    pl.clear_device_cache()
+    dc.clear_device_cache()
     try:
-        w1, n1 = pl.lod_windows_pallas_prepacked_raw(
-            packed, L, freq, 0.001, miss, 60, interpret=True)
-        assert pl._device_cache and len(pl._device_cache) == 1
-        h0 = pl._device_cache_hits
-        w2, n2 = pl.lod_windows_pallas_prepacked_raw(
-            packed, L, freq, 0.001, miss, 60, interpret=True)
-        assert pl._device_cache_hits == h0 + 1, "repeat run missed the cache"
-        np.testing.assert_array_equal(np.asarray(w1), np.asarray(w2))
+        w1 = windows(packed)
+        assert len(dc._device_cache) == 1
+        h0 = dc._device_cache_hits
+        w2 = windows(packed)
+        assert dc._device_cache_hits == h0 + 1, "repeat run missed the cache"
+        np.testing.assert_array_equal(np.asarray(w1.win), np.asarray(w2.win))
         # winsize-independence: a different winsize still reuses the payload
-        pl.lod_windows_pallas_prepacked_raw(packed, L, freq, 0.001,
-                                            np.zeros(L - 99, bool), 100,
-                                            interpret=True)
-        assert pl._device_cache_hits == h0 + 2
+        windows(packed, W=100)
+        assert dc._device_cache_hits == h0 + 2
         # a distinct panel of identical shape must NOT alias
-        other = mk_panel(2)
-        pl.lod_windows_pallas_prepacked_raw(other, L, freq, 0.001, miss, 60,
-                                            interpret=True)
-        assert pl._device_cache_hits == h0 + 2 and len(pl._device_cache) == 2
+        windows(mk_panel(2))
+        assert dc._device_cache_hits == h0 + 2 and len(dc._device_cache) == 2
         # LRU eviction: with a ~one-entry budget, inserting a third panel
         # evicts the least-recently-used one and stays under budget
-        one = pl._entry_nbytes(next(iter(pl._device_cache.values())))
+        one = dc._entry_nbytes(next(iter(dc._device_cache.values())))
         os.environ["GARLIC_TPU_DEVICE_CACHE"] = str((2 * one - 1) / (1 << 20))
-        pl.lod_windows_pallas_prepacked_raw(mk_panel(3), L, freq, 0.001,
-                                            miss, 60, interpret=True)
-        assert len(pl._device_cache) == 1
-        assert pl._device_cache_bytes <= 2 * one - 1
+        windows(mk_panel(3))
+        assert len(dc._device_cache) == 1
+        assert dc._device_cache_bytes <= 2 * one - 1
     finally:
         os.environ.pop("GARLIC_TPU_DEVICE_CACHE", None)
-        pl.clear_device_cache()
-        pl.clear_ship_stash()
+        dc.clear_device_cache()
 
 
 def test_derived_digest_cache_key():
@@ -341,7 +253,7 @@ def test_derived_digest_cache_key():
                                         ship_key_from_digest)
     from garlic_tpu.core.types import ChromData, LocusNames
     from garlic_tpu.io.filters import _apply
-    from garlic_tpu.ops import pallas_lod as pl
+    from garlic_tpu.ops import device_cache as dc
 
     if not native_available():
         pytest.skip("native lib unavailable")
@@ -350,7 +262,7 @@ def test_derived_digest_cache_key():
     Lp = -(-L // 4) * 4
     g = rng.integers(0, 3, size=(I, Lp)).astype(np.int8)
     g[:, L:] = -9
-    packed = pl.pack_genotypes(np.ascontiguousarray(g))
+    packed = dc.pack_genotypes(np.ascontiguousarray(g))
     freq = rng.uniform(0.05, 0.95, L)
     freq[rng.choice(L, 40, replace=False)] = 0.0  # monomorphic → filtered
     keep = (freq > 0) & (freq < 1)
@@ -367,7 +279,7 @@ def test_derived_digest_cache_key():
     assert fc._geno2b is None and fc._geno2b_thunk is not None
     assert fc.nind == I and fc.nloci == nk
     assert fc.geno2b_digest == derived_digest(dig, keep)
-    key = pl._chrom_key(fc)
+    key = dc._chrom_key(fc)
     assert key == ship_key_from_digest(I, nk, fc.geno2b_digest)
     # determinism + sensitivity of the derivation
     assert derived_digest(dig, keep) == derived_digest(dig, keep.copy())
@@ -376,33 +288,24 @@ def test_derived_digest_cache_key():
     assert derived_digest(dig, keep2) != derived_digest(dig, keep)
     assert derived_digest(None, keep) is None
 
-    miss = np.zeros(nk - 60 + 1, dtype=bool)
-    pl.clear_ship_stash()
-    pl.clear_device_cache()
+    dc.clear_device_cache()
     try:
-        w1, n1 = pl.lod_windows_pallas_prepacked_raw(
-            lambda: fc.geno2b, nk, freq[keep], 0.001, miss, 60,
-            interpret=True, key=key, I=I)
-        assert len(pl._device_cache) == 1
-        # repeat with a poisoned thunk: a genuine hit never materializes
+        d1, k1 = dc.device_packed_keyed(fc)
+        assert k1 == key and len(dc._device_cache) == 1
 
+        # repeat with a poisoned thunk: a genuine hit never materializes
         def boom():
             raise AssertionError("cache hit materialized the payload")
 
-        w2, n2 = pl.lod_windows_pallas_prepacked_raw(
-            boom, nk, freq[keep], 0.001, miss, 60,
-            interpret=True, key=key, I=I)
-        assert n1 == n2
-        np.testing.assert_array_equal(np.asarray(w1), np.asarray(w2))
-        # and the derived-key payload matches hashing the real bytes: the
-        # windows equal the eager (no-thunk, hash-keyed) computation
-        pl.clear_device_cache()
-        w3, _ = pl.lod_windows_pallas_prepacked_raw(
-            fc.geno2b, nk, freq[keep], 0.001, miss, 60, interpret=True)
-        np.testing.assert_array_equal(np.asarray(w1), np.asarray(w3))
+        poisoned = _apply(c, keep)
+        poisoned._geno2b_thunk = boom
+        d2, k2 = dc.device_packed_keyed(poisoned)
+        assert k2 == key and d2 is d1
+        # and the derived-key payload equals the real filtered bytes
+        np.testing.assert_array_equal(np.asarray(d1), fc.geno2b)
+        assert dc._ship_key(fc.geno2b, nk)[:2] == key[:2]
     finally:
-        pl.clear_device_cache()
-        pl.clear_ship_stash()
+        dc.clear_device_cache()
 
 
 def test_device_plane_cache():
@@ -411,27 +314,27 @@ def test_device_plane_cache():
     different bytes -> different buffer; values always round-trip; the
     plane LRU stays within its budget and never touches the genotype
     cache."""
-    from garlic_tpu.ops import pallas_lod as pl
+    from garlic_tpu.ops import device_cache as dc
 
-    pl.clear_device_cache()
+    dc.clear_device_cache()
     try:
         a = np.arange(512, dtype=np.float32)
-        d1 = pl._device_plane(a)
-        d2 = pl._device_plane(a.copy())          # same content
+        d1 = dc._device_plane(a)
+        d2 = dc._device_plane(a.copy())          # same content
         assert d1 is d2, "identical content must hit the plane cache"
         np.testing.assert_array_equal(np.asarray(d1), a)
         b = a + 1
-        d3 = pl._device_plane(b)
+        d3 = dc._device_plane(b)
         assert d3 is not d1
         np.testing.assert_array_equal(np.asarray(d3), b)
         # same bytes, different dtype/shape must not alias
-        d4 = pl._device_plane(a.view(np.int32))
+        d4 = dc._device_plane(a.view(np.int32))
         assert d4 is not d1
-        assert not pl._device_cache, "planes must not enter the geno cache"
-        assert pl._plane_cache_bytes <= min(
-            pl._device_cache_budget() // 8, 64 << 20)
+        assert not dc._device_cache, "planes must not enter the geno cache"
+        assert dc._plane_cache_bytes <= min(
+            dc._device_cache_budget() // 8, 64 << 20)
     finally:
-        pl.clear_device_cache()
+        dc.clear_device_cache()
 
 
 def test_panel_cache_alleles_zero_copy():

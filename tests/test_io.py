@@ -251,7 +251,7 @@ def test_tped_packed_2bit_matches_int8(tmp_path, seed):
     """The fused transpose+pack parser exit (gt_tped_copy_2bit) must emit
     exactly the codes pack_genotypes produces from the int8 matrix,
     including tail-byte padding codes (3 = missing)."""
-    from garlic_tpu.ops.pallas_lod import pack_genotypes
+    from garlic_tpu.ops.device_cache import pack_genotypes
 
     rng = np.random.default_rng(seed + 500)
     nind = int(rng.integers(1, 40))
